@@ -51,8 +51,8 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-import blocksparse_tpu as bst  # noqa: E402
-from blocksparse_tpu.parallel.distributed import distribute  # noqa: E402
+import blocksparse as bst  # noqa: E402
+from blocksparse.parallel.distributed import distribute  # noqa: E402
 
 GROUP = 256
 GROUPS_PER_SHARD = 8

@@ -28,7 +28,7 @@ def fibonacci_sphere(n):
 def main():
     import jax
 
-    import blocksparse_tpu as bst
+    import blocksparse as bst
 
     rng = np.random.default_rng(0)
     npts, nclusters = 2048, 32
@@ -74,7 +74,7 @@ def main():
 
     # right-hand side and solve: first-class CG, block-Jacobi preconditioned
     # (the preconditioner inverts the stored diagonal blocks and is itself a
-    # BlockSparseMatrix, so both operators in the loop run on the MXU)
+    # BlockSparseMatrix, so both operators in the loop run on the device)
     b = rng.standard_normal(npts).astype(np.float32)
     x_plain, info_plain = bst.cg(S, b, tol=1e-6, maxiter=400)
     M = bst.block_jacobi(S)
@@ -98,7 +98,7 @@ def main():
     if len(devs) > 1:
         from jax.sharding import Mesh
 
-        from blocksparse_tpu.parallel.distributed import distribute
+        from blocksparse.parallel.distributed import distribute
 
         mesh = Mesh(np.array(devs), ("rows",))
         D = distribute(S, mesh)

@@ -1,6 +1,6 @@
 // Native DSATUR conflict-graph coloring for block-sparse scheduling.
 //
-// Host-side runtime component of blocksparse_tpu (the reference's coloring
+// Host-side runtime component of blocksparse (the reference's coloring
 // subsystem, src/coloring.jl + GraphsColoring.WorkstreamDSATUR, is its only
 // construction-time hot spot: the docs note coloring can dominate
 // construction, docs/src/block.md:98).  This implementation:
@@ -9,7 +9,7 @@
 //      (two blocks conflict iff their output index sets intersect);
 //   2. runs DSATUR greedy coloring with (saturation, degree) selection and
 //      first-index tie-breaking -- bit-identical to the pure-Python
-//      implementation in blocksparse_tpu/coloring/__init__.py, which the
+//      implementation in blocksparse/coloring/__init__.py, which the
 //      parity tests assert.
 //
 // C ABI, bound via ctypes (no pybind11 in this image).

@@ -2,7 +2,7 @@
 //
 // Packs ragged dense blocks into one shape bucket's padded SoA arrays
 // (values + sentinel element index tables + chunk tables) in a single pass.
-// The Python fallback in blocksparse_tpu/core/layout.py does the same with
+// The Python fallback in blocksparse/core/layout.py does the same with
 // a per-block numpy loop; for operator assembly at production scale
 // (10^5+ blocks) the per-block interpreter overhead dominates construction,
 // which this removes.  Bound via ctypes (C ABI; no pybind11 in the image).

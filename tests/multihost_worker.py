@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main() -> int:
     pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 
-    from blocksparse_tpu.parallel import multihost
+    from blocksparse.parallel import multihost
 
     # 8 global devices regardless of the process count: 2 procs x 4 local
     # (one boundary) or 4 procs x 2 local (a ring with three host edges)
@@ -34,8 +34,8 @@ def main() -> int:
         f"cluster failed to form: {jax.device_count()} global devices"
     )
 
-    import blocksparse_tpu as bst
-    from blocksparse_tpu.parallel.distributed import distribute
+    import blocksparse as bst
+    from blocksparse.parallel.distributed import distribute
 
     # identical fixture on every host (same-on-all-hosts contract)
     rng = np.random.default_rng(42)

@@ -1,7 +1,7 @@
-"""Batched multi-operand SpMM (ops/batched.py): one launch, P products.
+"""Batched multi-operand products (ops/batched.py): P products in one call.
 
-CPU tier runs the kernel in interpret mode; correctness vs per-operator
-scipy oracles, gradient exactness, fallback routes, and input guards.
+Correctness vs per-operator scipy oracles, gradient exactness, mixed
+structures, and input guards.
 """
 
 import numpy as np
@@ -10,12 +10,12 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
-import blocksparse_tpu as bst
+import blocksparse as bst
 
 TOL = 2e-5
 
 
-def build(seed, n=512, nblocks=10, bs=32, backend="pallas-interpret"):
+def build(seed, n=512, nblocks=10, bs=32, backend="xla"):
     rng = np.random.default_rng(7)      # fixed structure
     vrng = np.random.default_rng(seed)  # per-op values
     ntiles = n // bs
@@ -58,10 +58,8 @@ def test_batched_list_input(ops, rng):
 
 
 def test_batched_r_slicing(ops, rng):
-    """r > R_SLICE splits into column slices inside the batched path."""
-    from blocksparse_tpu.ops.patch_engine import R_SLICE
-
-    r = R_SLICE + 8
+    """A wide RHS (r = 136) through the batched path."""
+    r = 136
     Xs = rng.standard_normal((3, 512, r)).astype(np.float32)
     out = bst.batched_mm(ops, Xs)
     for p, op in enumerate(ops):
@@ -69,7 +67,7 @@ def test_batched_r_slicing(ops, rng):
 
 
 def test_batched_grad(ops, rng):
-    """Exact cotangents in Xs through the custom VJP."""
+    """Exact cotangents in Xs."""
     Xs = jnp.asarray(rng.standard_normal((3, 512, 8)).astype(np.float32))
 
     def f(Xs):
@@ -94,7 +92,7 @@ def test_fallback_on_mixed_structure(rng):
 
 
 def test_fallback_on_xla_backend(rng):
-    ops = [build(s, backend="xla") for s in (1, 2)]
+    ops = [build(s, backend="auto") for s in (1, 2)]
     Xs = rng.standard_normal((2, 512, 8)).astype(np.float32)
     out = bst.batched_mm(ops, Xs)
     for p, op in enumerate(ops):
@@ -109,12 +107,12 @@ def test_guards(ops, rng):
 
 
 # ---------------------------------------------------------------------------
-# batched_mv (panel-engine SpMV)
+# batched_mv
 # ---------------------------------------------------------------------------
 
 
-def build_sym(seed, backend="pallas-interpret"):
-    from blocksparse_tpu.utils.testmatrices import random_symmetric
+def build_sym(seed, backend="xla"):
+    from blocksparse.utils.testmatrices import random_symmetric
 
     d, di, o, ri, ci, shape = random_symmetric(
         9, n=640, ngroups=10, noffdiag=14, dtype=np.float32,
@@ -162,50 +160,24 @@ def test_batched_mv_grad(rng):
 def test_batched_mv_fallback_mixed(rng):
     """Different structures -> per-operator loop, identical results."""
     a = build_sym(1)
-    from blocksparse_tpu.utils.testmatrices import random_symmetric
+    from blocksparse.utils.testmatrices import random_symmetric
 
     d, di, o, ri, ci, shape = random_symmetric(
         10, n=640, ngroups=11, noffdiag=12, dtype=np.float32,
         contiguous=True,
     )
-    b = bst.SymmetricBlockMatrix(d, di, o, ri, ci, shape,
-                                 backend="pallas-interpret")
+    b = bst.SymmetricBlockMatrix(d, di, o, ri, ci, shape)
     xs = rng.standard_normal((2, 640)).astype(np.float32)
     out = bst.batched_mv([a, b], xs)
     assert relerr(out[0], bst.to_scipy(a) @ xs[0]) < TOL
     assert relerr(out[1], bst.to_scipy(b) @ xs[1]) < TOL
 
 
-def test_batched_mv_fused_mirror(rng):
-    """The fused (one-read mirror) batched kernel path: a population where
-    the cost model picks mirror=True."""
-    from blocksparse_tpu.ops.batched import _stacked_panel_entry
-    from blocksparse_tpu.utils.testmatrices import random_symmetric
-
-    def mk(seed):
-        d, di, o, ri, ci, shape = random_symmetric(
-            8, n=1024, ngroups=12, noffdiag=40, dtype=np.float32,
-            contiguous=True,
-        )
-        vr = np.random.default_rng(seed)
-        d = [vr.standard_normal(b.shape).astype(np.float32) for b in d]
-        o = [vr.standard_normal(b.shape).astype(np.float32) for b in o]
-        return bst.SymmetricBlockMatrix(d, di, o, ri, ci, shape,
-                                        backend="pallas-interpret")
-
-    ops = [mk(s) for s in (1, 2)]
-    entry = _stacked_panel_entry(ops)
-    assert entry is not None and entry[0].mirror   # really the fused path
-    xs = rng.standard_normal((2, 1024)).astype(np.float32)
-    out = bst.batched_mv(ops, xs)
-    for p, op in enumerate(ops):
-        assert relerr(out[p], bst.to_scipy(op) @ xs[p]) < TOL
-
-
 def test_jit_first_no_tracer_leak(rng):
     """An operator/batch whose FIRST product happens inside a jit trace
     must not leak trace-local device arrays into later traces (the
-    plan_cache_entry contract, core/device.py)."""
+    host-table caches of ops/xla_spmv.py build device copies only
+    outside a trace)."""
     ops = [build(s) for s in (6, 7)]
     Xs = jnp.asarray(rng.standard_normal((2, 512, 8)).astype(np.float32))
     o1 = jax.jit(lambda X: bst.batched_mm(ops, X))(Xs)

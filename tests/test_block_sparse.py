@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import blocksparse_tpu as bst
-from blocksparse_tpu.utils.testmatrices import random_block_sparse
+import blocksparse as bst
+from blocksparse.utils.testmatrices import random_block_sparse
 
 TOL = 1e-13
 
@@ -134,12 +134,11 @@ def test_serial_vs_colored_duality(rng):
 
 
 @pytest.mark.parametrize("schedule", [bst.SERIAL, bst.COLORED])
-@pytest.mark.parametrize("backend", ["xla", "pallas-interpret"])
-def test_unsorted_index_lists(schedule, backend, rng):
+def test_unsorted_index_lists(schedule, rng):
     """The reference's trial index lists are UNSORTED
     (test_blockmatrix.jl:33-82, SURVEY §4): block entry (i, j) binds to
     (rows[i], cols[j]) whatever the list order.  Exercises the gather/
-    scatter tables, both schedules, and the pallas-interpret engines."""
+    scatter tables and both schedules."""
     blocks, rows, cols, shape = random_block_sparse(
         31, shape=(700, 700), nblocks=40, max_block=50,
         dtype=np.complex128, sorted_indices=False,
@@ -147,28 +146,14 @@ def test_unsorted_index_lists(schedule, backend, rng):
     # make sure the fixture is genuinely unsorted
     assert any(not np.all(np.diff(r) > 0) for r in rows)
     assert any(not np.all(np.diff(c) > 0) for c in cols)
-    kw = {}
-    if backend == "pallas-interpret":
-        # interpret engines are f32-only: use a real copy of the fixture
-        blocks = [np.ascontiguousarray(b.real, np.float32) for b in blocks]
-        kw = dict(dtype=np.float32)
-        tol = 2e-5
-    else:
-        tol = TOL
     A = bst.BlockSparseMatrix(blocks, rows, cols, shape, schedule=schedule,
-                              backend=backend, **kw)
+                              backend="xla")
     S = bst.to_scipy(A)
-    x = rng.standard_normal(shape[1])
-    y = rng.standard_normal(shape[0])
-    if backend == "xla":
-        x = x + 1j * rng.standard_normal(shape[1])
-        y = y + 1j * rng.standard_normal(shape[0])
-    else:
-        x = x.astype(np.float32)
-        y = y.astype(np.float32)
-    assert relerr(A @ x, S @ x) < tol
-    assert relerr(A.T @ y, S.T @ y) < tol
-    assert relerr(A.H @ y, S.conj().T @ y) < tol
+    x = rng.standard_normal(shape[1]) + 1j * rng.standard_normal(shape[1])
+    y = rng.standard_normal(shape[0]) + 1j * rng.standard_normal(shape[0])
+    assert relerr(A @ x, S @ x) < TOL
+    assert relerr(A.T @ y, S.T @ y) < TOL
+    assert relerr(A.H @ y, S.conj().T @ y) < TOL
 
 
 def test_wrapper_api_parity():

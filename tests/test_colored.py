@@ -14,8 +14,8 @@ import pytest
 
 import jax.numpy as jnp
 
-import blocksparse_tpu as bst
-from blocksparse_tpu.ops.colored import _plan_cached
+import blocksparse as bst
+from blocksparse.ops.colored import _plan_cached
 
 TOL = 1e-12
 
@@ -75,7 +75,7 @@ def test_serial_vs_colored_duality():
 def test_symmetric_fused_colors():
     """The fused one-read pass runs its two scatters as gather rounds keyed
     by fusedcolors() (union row+col conflicts, SURVEY.md §7 stance 4)."""
-    from blocksparse_tpu.utils.testmatrices import random_symmetric
+    from blocksparse.utils.testmatrices import random_symmetric
 
     rng = np.random.default_rng(2)
     d, di, o, ri, ci, shape = random_symmetric(
@@ -118,45 +118,6 @@ def test_broken_coloring_detected():
     _plan_cached.cache_clear()
     y_bad = np.asarray(A @ jnp.asarray(x))
     assert np.abs(y_bad - S @ x).max() > 1e-3
-
-
-def test_core_split_parallel_grid(monkeypatch):
-    """The slab kernel's core-split variant: a PARALLEL leading grid
-    dimension with per-core private output copies (megacore plan;
-    sequentialized on 1-TensorCore chips like the v5e).  Interpret mode
-    exercises the 2-core split on any host."""
-    monkeypatch.setenv("BST_SLAB_CORES", "2")
-    monkeypatch.setenv("BST_STRIP", "always")
-
-    rng = np.random.default_rng(5)
-    n = 1024
-    blocks, rows, cols = [], [], []
-    for _ in range(30):
-        m = int(rng.integers(16, 90))
-        k = int(rng.integers(16, 90))
-        r0 = int(rng.integers(0, n - m))
-        c0 = int(rng.integers(0, n - k))
-        blocks.append(rng.standard_normal((m, k)).astype(np.float32))
-        rows.append(np.arange(r0, r0 + m))
-        cols.append(np.arange(c0, c0 + k))
-    A = bst.BlockSparseMatrix(blocks, rows, cols, (n, n),
-                              backend="pallas-interpret")
-    S = bst.to_scipy(A)
-    x = rng.standard_normal(n).astype(np.float32)
-    assert np.abs(np.asarray(A @ jnp.asarray(x)) - S @ x).max() < 1e-3
-
-    # symmetric mirror path through the same split
-    from blocksparse_tpu.utils.testmatrices import random_symmetric
-
-    d, di, o, ri, ci, shape = random_symmetric(
-        3, n=1024, ngroups=12, noffdiag=20, dtype=np.float32,
-        contiguous=True,
-    )
-    Sm = bst.SymmetricBlockMatrix(d, di, o, ri, ci, shape,
-                                  backend="pallas-interpret")
-    Ssc = bst.to_scipy(Sm)
-    xs = rng.standard_normal(shape[0]).astype(np.float32)
-    assert np.abs(np.asarray(Sm @ jnp.asarray(xs)) - Ssc @ xs).max() < 1e-3
 
 
 def test_colored_grad():

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import blocksparse_tpu.coloring as coloring
-from blocksparse_tpu.coloring import native
-from blocksparse_tpu.utils.testmatrices import random_block_sparse
+import blocksparse.coloring as coloring
+from blocksparse.coloring import native
+from blocksparse.utils.testmatrices import random_block_sparse
 
 
 def make_lists(seed=11, n=400, nblocks=60, max_block=40):

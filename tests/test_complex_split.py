@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import blocksparse_tpu as bst
-from blocksparse_tpu.utils.testmatrices import random_block_sparse, random_symmetric
+import blocksparse as bst
+from blocksparse.utils.testmatrices import random_block_sparse, random_symmetric
 
 TOL = 1e-13
 
@@ -30,7 +30,7 @@ def test_block_sparse_split(rng):
     assert relerr(P.conj() @ x, S.conj() @ x) < TOL
     assert relerr(P.axpby(x, x, 1j, 2j), 1j * (S @ x) + 2j * x) < TOL
 
-    # TPU-safe split API: real arrays in, real arrays out
+    # split API: real arrays in, real arrays out
     yr, yi = P.mv_split(x.real, x.imag)
     ref = S @ x
     assert relerr(np.asarray(yr) + 1j * np.asarray(yi), ref) < TOL

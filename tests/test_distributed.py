@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-import blocksparse_tpu as bst
-from blocksparse_tpu.parallel.distributed import distribute
-from blocksparse_tpu.utils.testmatrices import (
+import blocksparse as bst
+from blocksparse.parallel.distributed import distribute
+from blocksparse.utils.testmatrices import (
     random_block_sparse,
     random_symmetric,
     random_vbcrs,

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from blocksparse_tpu.core.layout import build_layout, is_contiguous, round_up
+from blocksparse.core.layout import build_layout, is_contiguous, round_up
 
 
 def test_round_up():
@@ -127,8 +127,8 @@ def test_chunk_disabled():
 
 def test_native_pack_parity():
     """Native C++ packer must produce bit-identical buckets to numpy."""
-    from blocksparse_tpu.core import native_pack
-    from blocksparse_tpu.utils.testmatrices import random_block_sparse
+    from blocksparse.core import native_pack
+    from blocksparse.utils.testmatrices import random_block_sparse
 
     assert native_pack.available(), "native layout packer failed to build"
     blocks, rows, cols, shape = random_block_sparse(
@@ -190,7 +190,7 @@ def test_kmerge_lane_density():
 
 
 def test_kmerge_product_matches_oracle():
-    import blocksparse_tpu as bst
+    import blocksparse as bst
 
     rng = np.random.default_rng(6)
     n = 512
@@ -229,7 +229,7 @@ def test_chunk_cover_scattered():
     for i in range(12):  # dilated placement round-trips
         assert np.array_equal(lay.extract_block(i), blocks[i])
     # chunk tables address real data: oracle product through the package
-    import blocksparse_tpu as bst
+    import blocksparse as bst
 
     A = bst.BlockSparseMatrix(blocks, rows, cols, (n, n))
     x = rng.standard_normal(n)

@@ -5,7 +5,7 @@ tier exercises what they cannot -- ``jax.distributed.initialize`` cluster
 formation, global meshes containing non-addressable devices, and halo
 ``ppermute``s whose ring edges cross the process (i.e. host/DCN) boundary.
 This is the CPU-cluster analog of a 2-host pod slice (BASELINE config 5's
-"N >= 2 hosts"); see blocksparse_tpu/parallel/multihost.py.
+"N >= 2 hosts"); see blocksparse/parallel/multihost.py.
 """
 
 import os

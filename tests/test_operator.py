@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import blocksparse_tpu as bst
-from blocksparse_tpu.utils.testmatrices import random_block_sparse
+import blocksparse as bst
+from blocksparse.utils.testmatrices import random_block_sparse
 
 TOL = 1e-13
 

@@ -2,7 +2,7 @@
 algebra, and their effect on Krylov convergence.
 
 The reference has no preconditioner component (solvers consume its
-LinearMaps interface raw); these validate the TPU-native addition against
+LinearMaps interface raw); these validate the addition against
 dense-math oracles.
 """
 
@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import blocksparse_tpu as bst
-from blocksparse_tpu.utils import testmatrices as tm
+import blocksparse as bst
+from blocksparse.utils import testmatrices as tm
 
 TOL = 1e-12
 

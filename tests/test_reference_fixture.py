@@ -14,7 +14,7 @@ import os
 import numpy as np
 import pytest
 
-import blocksparse_tpu as bst
+import blocksparse as bst
 
 FIXTURE = "/root/reference/test/assets/symmetricblockexamples.jld2"
 TOL = 1e-13
@@ -33,7 +33,7 @@ def relerr(a, b):
 @pytest.fixture(scope="module")
 def blockdict():
     h5py = pytest.importorskip("h5py")  # noqa: F841
-    from blocksparse_tpu.interop.jld2 import load_symmetric_examples
+    from blocksparse.interop.jld2 import load_symmetric_examples
 
     return load_symmetric_examples(FIXTURE)
 
@@ -133,9 +133,8 @@ def test_display_smoke(case, capsys):
 
 
 def test_split_complex_route(case, rng):
-    """The TPU execution route for this fixture: split re/im planes
-    (docs/performance.md 'Complex matrices on TPU'), checked against the
-    same oracle on CPU at f64 split precision."""
+    """The split re/im form of this fixture (``bst.split_complex``),
+    checked against the same oracle on CPU at f64 split precision."""
     b, _, S = case
     P = bst.split_complex(b)
     y = rng.standard_normal(b.shape[1]) + 1j * rng.standard_normal(b.shape[1])

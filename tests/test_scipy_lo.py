@@ -3,8 +3,8 @@ subtyping analog, abstractblockmatrix.jl:1-20)."""
 
 import numpy as np
 
-import blocksparse_tpu as bst
-from blocksparse_tpu.utils.testmatrices import random_block_sparse, random_symmetric
+import blocksparse as bst
+from blocksparse.utils.testmatrices import random_block_sparse, random_symmetric
 
 TOL = 1e-10
 

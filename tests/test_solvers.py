@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import blocksparse_tpu as bst
-from blocksparse_tpu.utils import testmatrices as tm
+import blocksparse as bst
+from blocksparse.utils import testmatrices as tm
 
 TOL = 1e-10
 

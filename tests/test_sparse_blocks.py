@@ -4,7 +4,7 @@ Parity: the reference accepts any AbstractMatrix block including
 SparseMatrixCSC, and ``_nnz`` special-cases it to the stored entry count
 (/root/reference/src/abstractblockmatrix.jl:65-71) while mul! dispatches to
 sparse gemv transparently.  Here sparse blocks densify into the buckets
-(TPU compute is dense-tile based) but keep the reference's logical-nnz rule.
+(compute is dense-tile based) but keep the reference's logical-nnz rule.
 """
 
 import numpy as np
@@ -14,7 +14,7 @@ pytest.importorskip("jax")
 import jax.numpy as jnp
 import scipy.sparse as sp
 
-import blocksparse_tpu as bst
+import blocksparse as bst
 
 
 def _mixed_blocks(seed=0, n=200):

@@ -7,8 +7,8 @@ equality (BSM built from the same blocks, and VBCRS converted from BSM/SBM).
 import numpy as np
 import pytest
 
-import blocksparse_tpu as bst
-from blocksparse_tpu.utils.testmatrices import random_symmetric, random_vbcrs
+import blocksparse as bst
+from blocksparse.utils.testmatrices import random_symmetric, random_vbcrs
 
 TOL = 1e-13
 

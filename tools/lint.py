@@ -22,10 +22,11 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TARGETS = [
-    "blocksparse_tpu",
+    "blocksparse",
     "tests",
     "tools",
     "bench.py",
+    "chip_smoke.py",
     "__graft_entry__.py",
     "examples",
 ]
@@ -54,7 +55,7 @@ def main() -> int:
         except SyntaxError as e:
             problems.append(f"{rel}:{e.lineno}: syntax error: {e.msg}")
             continue
-        if str(rel).startswith("blocksparse_tpu") and not (
+        if str(rel).startswith("blocksparse") and not (
             ast.get_docstring(tree) or path.name == "__init__.py"
         ):
             problems.append(f"{rel}: missing module docstring")
